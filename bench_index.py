@@ -21,15 +21,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
-    from minialign_tpu.native import tune_malloc
+    from minialign_jax.native import tune_malloc
     tune_malloc()
     gb = 1.0
     if "--gb" in sys.argv:
         gb = float(sys.argv[sys.argv.index("--gb") + 1])
     n = int(gb * 1e9)
 
-    from minialign_tpu.index.build import build_index
-    from minialign_tpu.params import IndexParams
+    from minialign_jax.index.build import build_index
+    from minialign_jax.params import IndexParams
 
     rng = np.random.default_rng(7)
     # chromosome-sized chunks, as a real genome presents them
@@ -52,7 +52,7 @@ def main():
 
     # sanity: lookups over a sampled read round-trip
     s = codes[0][: 10_000].astype(np.int64)
-    from minialign_tpu.index.sketch import sketch
+    from minialign_jax.index.sketch import sketch
     h, _, _ = sketch(s, ip.k, ip.w)
     _, cnt = mi.lookup(h)
     assert (cnt > 0).all(), "sampled lookups must hit"

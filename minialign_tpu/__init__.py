@@ -1,34 +1,5 @@
-"""minialign-tpu: a TPU-native long-read alignment engine.
+"""The package's former name, kept so that existing command lines
+(`python -m <this package>.cli ...`) still run. Everything lives in
+minialign_jax."""
 
-A from-scratch reimplementation of the capabilities of ocxtal/minialign
-(minimizer index + seed chaining + adaptive-banded Smith-Waterman-Gotoh
-extension) designed for TPUs: the banded-DP wavefront runs as batched
-JAX/Pallas kernels, seeding/chaining are sort/gather ops over a
-device-resident minimizer index, and the host side orchestrates batched
-extension scheduling and SAM emission.
-
-Reference behavior spec: /root/reference (minialign.c, gaba.c) — cited
-throughout as file:line. This package is a new TPU-first design, not a
-translation.
-"""
-
-import os as _os
-
-# persistent XLA compilation cache: the fill kernel compiles one
-# variant per (W, shape-bucket, trace) — expensive (tens of seconds on
-# remote-compile backends) but fully reusable across runs
-_os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                       _os.path.expanduser("~/.cache/minialign_tpu_jax"))
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "-1")
-
-# backend override (e.g. MINIALIGN_PLATFORM=cpu for tooling/fuzzing):
-# a plain JAX_PLATFORMS env is clobbered by site customizations on
-# some machines, so apply it through jax.config after import
-if _os.environ.get("MINIALIGN_PLATFORM"):
-    import jax as _jax
-    _jax.config.update("jax_platforms",
-                       _os.environ["MINIALIGN_PLATFORM"])
-
-__version__ = "0.1.0"
-VERSION_STRING = "minialign-tpu-0.1.0"
+from minialign_jax import VERSION_STRING, __version__  # noqa: F401

@@ -1,6 +1,6 @@
-// Native host-side runtime for minialign-tpu.
+// Native host-side runtime for minialign-jax.
 //
-// The TPU (Pallas) kernels own the DP compute; these are the host hot
+// The device fills own the DP compute; these are the host hot
 // paths the reference implements in C (minialign.c / gaba.c) and that
 // CPython is too slow for at production scale:
 //   * traceback  — the per-alignment mask walk (trace_core,
@@ -552,7 +552,7 @@ static inline uint64_t crc32c_u64(uint64_t crc, uint64_t val) {
 // cap: output capacity; returns -1 when it would overflow (the caller
 // retries with a bigger buffer — lets callers allocate ~L/4 instead of
 // L-sized outputs, which matters on lazily-backed hosts where fresh
-// page faults are ~1000x slower than touched memory; see PERF_NOTES)
+// page faults are far slower than touched memory)
 int64_t sketch_seq(const int8_t* codes, int64_t L, int32_t k, int32_t w,
                    int64_t cap, uint64_t* out_h, int64_t* out_pos,
                    uint8_t* out_strand) {

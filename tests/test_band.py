@@ -7,10 +7,10 @@ position, and path."""
 import numpy as np
 import pytest
 
-from minialign_tpu.dp import band
-from minialign_tpu.dp.oracle import oracle_extend
-from minialign_tpu.dp.traceback import traceback_batch
-from minialign_tpu.params import ScoreParams
+from minialign_jax.dp import band
+from minialign_jax.dp.oracle import oracle_extend
+from minialign_jax.dp.traceback import traceback_batch
+from minialign_jax.params import ScoreParams
 
 
 def simple(m, x, gi, ge, **kw):

@@ -1,5 +1,4 @@
-"""Chaining formulation evidence (VERDICT r3 item 5 / SURVEY hard
-part 4): is the reference's greedy chainer re-derivable as a
+"""Chaining formulation evidence (SURVEY hard part 4): is the reference's greedy chainer re-derivable as a
 sort-by-(rpos-2qpos) + segmented-scan device kernel?
 
 Answer, pinned here: NO, not at byte parity. The reference's
@@ -25,10 +24,10 @@ PASSING the equivalence check, that conclusion should be revisited.
 import numpy as np
 import pytest
 
-from minialign_tpu import chain as C
-from minialign_tpu.index.build import build_index
-from minialign_tpu.io import bseq
-from minialign_tpu.params import IndexParams
+from minialign_jax import chain as C
+from minialign_jax.index.build import build_index
+from minialign_jax.io import bseq
+from minialign_jax.params import IndexParams
 
 
 def _chain_fixed_window(seeds, twlen):

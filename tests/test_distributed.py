@@ -1,8 +1,8 @@
 """Multi-host data-parallel mapping: two real jax.distributed CPU
 processes each map half the batches; merge_host_outputs restores
 global order and the cross-host stale-rlen chain, and the result must
-be byte-identical to the single-process CLI output (VERDICT round-1
-item 6; SURVEY.md §2.6 multi-host data parallelism)."""
+be byte-identical to the single-process CLI output (SURVEY.md §2.6
+multi-host data parallelism)."""
 
 import io
 import os
@@ -21,7 +21,7 @@ def _args(reads_path):
 
 
 def _single_process_output(args):
-    from minialign_tpu import cli
+    from minialign_jax import cli
     out = io.StringIO()
     old = sys.stdout
     sys.stdout = out
@@ -55,7 +55,7 @@ def test_two_host_merge_byte_identical(tmp_path):
         _, err = p.communicate(timeout=900)
         assert p.returncode == 0, err.decode()[-2000:]
 
-    from minialign_tpu.parallel.distributed import merge_host_outputs
+    from minialign_jax.parallel.distributed import merge_host_outputs
     merged = io.StringIO()
     merge_host_outputs(list(ARGS), outs, merged)
 
@@ -67,7 +67,7 @@ def test_two_host_merge_byte_identical(tmp_path):
 def test_two_host_merge_multiblock(tmp_path):
     """Multi-block (-d over two refs) distributed run: _plan must
     accumulate base_qid across index blocks exactly like cli.main, so
-    the 64-bit pos-dedup hash sees identical qids (ADVICE r2 item 2)."""
+    the 64-bit pos-dedup hash sees identical qids."""
     ref2 = tmp_path / "tref2.fa"
     # a second, distinct reference block: reverse-complemented tref
     lines = open(f"{DATA}/tref.fa").read().splitlines()
@@ -98,7 +98,7 @@ def test_two_host_merge_multiblock(tmp_path):
         _, err = p.communicate(timeout=900)
         assert p.returncode == 0, err.decode()[-2000:]
 
-    from minialign_tpu.parallel.distributed import merge_host_outputs
+    from minialign_jax.parallel.distributed import merge_host_outputs
     merged = io.StringIO()
     merge_host_outputs(list(ARGS), outs, merged)
 

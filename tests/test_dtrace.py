@@ -4,8 +4,8 @@ penalties and out-of-band statuses on randomized fills (both models)."""
 import numpy as np
 import pytest
 
-from minialign_tpu.dp import band, dtrace, traceback
-from minialign_tpu.params import ScoreParams
+from minialign_jax.dp import band, dtrace, traceback
+from minialign_jax.params import ScoreParams
 
 
 def _expand(rle_col):

@@ -13,7 +13,7 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def _run(args):
-    from minialign_tpu import cli
+    from minialign_jax import cli
     out = io.StringIO()
     old = sys.stdout
     sys.stdout = out
@@ -69,7 +69,7 @@ def test_crlf_and_multiline_fastq(tmp_path):
     body = ("@r1 c\r\n" + "ACGT" * 30 + "\r\n" + "ACGT" * 10 + "\r\n"
             + "+\r\n" + "I" * 120 + "\r\n" + "J" * 40 + "\r\n")
     q.write_bytes(body.encode())
-    from minialign_tpu.io import bseq
+    from minialign_jax.io import bseq
     seqs = list(bseq.read_seqs(str(q), keep_qual=True))
     assert len(seqs) == 1
     assert len(seqs[0].codes) == 160
@@ -80,7 +80,7 @@ def test_min_len_filter(tmp_path):
     q = tmp_path / "mix.fq"
     q.write_text("@a\nACGTACGTACGTACGTACGT\n+\n" + "I" * 20 + "\n"
                  "@b\nACG\n+\nIII\n")
-    from minialign_tpu.io import bseq
+    from minialign_jax.io import bseq
     assert len(list(bseq.read_seqs(str(q), min_len=10))) == 1
 
 
@@ -88,7 +88,7 @@ def test_bseq_fasta_spec(tmp_path):
     """The reference's (disabled) bseq.fasta unittest literals
     (minialign.c:2166-2226): space-after-'>', CRLF, empty lines,
     trailing-space comments."""
-    from minialign_tpu.io import bseq
+    from minialign_jax.io import bseq
     fa = tmp_path / "spec.fa"
     fa.write_bytes(b">test0\nAAAA\n"
                    b"> test1\nATAT\nCGCG\r\n\r\n"
@@ -108,7 +108,7 @@ def test_bseq_fastq_spec(tmp_path):
     """The reference's (disabled) bseq.fastq unittest literals
     (minialign.c:2228-2290): '+' lines with text, quals containing
     '@'/'+', multi-line seq and qual, empty lines."""
-    from minialign_tpu.io import bseq
+    from minialign_jax.io import bseq
     fq = tmp_path / "spec.fq"
     fq.write_bytes(b"@test0\nAAAA\n+test0\nNNNN\n"
                    b"@ test1\nATAT\nCGCG\n+ test1\n12+3\n+123\r\n"
@@ -124,18 +124,22 @@ def test_bseq_fastq_spec(tmp_path):
     assert seqs[3].tags == ["CO:Z:comment comment"]
 
 
-def test_vmem_guard_word_packed_footprint():
-    """_pallas_vmem_ok mirrors make_fill_pallas's word-packed VMEM
-    allocation (10 chars/int32): the round-4 packing moved the Pallas
-    ceiling from ~131 kb (the stale int8-row formula) to the word
-    path's own offset-exactness cap at 2**18 chars/side. Reads that
-    the old guard needlessly bounced to the slow XLA fill must pass;
-    sources beyond the /10-exactness range must still fall back."""
-    from minialign_tpu.extend import FillEngine
-    ok = FillEngine._pallas_vmem_ok
-    assert ok(20480, 20480)            # production long-read bucket
-    assert ok(131072, 131072)          # old formula rejected this
-    assert ok(250000, 4096)            # ultra-long vs short window
-    assert ok(262016, 262016)          # word-path cap, both sides
-    assert not ok(300000, 4096)        # PA=19: /10 exactness bound
-    assert not ok(300000, 300000)
+
+def test_former_package_name_runs_cli():
+    """The package's former name still runs the CLI with `python -m`."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    alias = [d for d in os.listdir(root) if d.startswith("minialign_")
+             and d != "minialign_jax"
+             and os.path.isfile(os.path.join(root, d, "cli.py"))]
+    assert len(alias) == 1
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-m", alias[0] + ".cli", "-t1",
+                        f"{DATA}/tref.fa", f"{DATA}/treads.fq"],
+                       capture_output=True, text=True, env=env, cwd=root,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    want = open(f"{DATA}/ref_out.sam").read()
+    strip = lambda t: [ln for ln in t.splitlines()  # noqa: E731
+                       if not ln.startswith("@PG")]
+    assert strip(r.stdout) == strip(want)

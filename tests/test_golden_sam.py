@@ -12,7 +12,7 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def _run_cli(args):
-    from minialign_tpu import cli
+    from minialign_jax import cli
     out = io.StringIO()
     old = sys.stdout
     sys.stdout = out
@@ -196,7 +196,7 @@ def test_multiblock_index_byte_identical(tmp_path):
     each block in sequence, re-printing the header per block
     (minialign.c:6414-6436)."""
     mai = str(tmp_path / "two.mai")
-    rc = __import__("minialign_tpu.cli", fromlist=["main"]).main(
+    rc = __import__("minialign_jax.cli", fromlist=["main"]).main(
         ["-t1", "-d", mai, f"{DATA}/tref.fa", f"{DATA}/tref.fa"])
     assert rc == 0
     got = _run_cli(["-t1", mai, f"{DATA}/treads.fq"])
@@ -387,7 +387,7 @@ def test_ksort_tie_order_byte_identical():
     depends on ksort's exact (unstable) equal-key radix permutation of
     the seed sort (minialign.c:203+3535). A stable sort splits one
     chain in two and leaks an extra secondary record. Found by the
-    fuzzer (seed 32); exercises minialign_tpu/ksort.py end to end."""
+    fuzzer (seed 32); exercises minialign_jax/ksort.py end to end."""
     got = _run_cli(["-t1", "-a3", "-b2", "-p5", "-q2", "-r3,3",
                     "-s59", "-m0.2", "-k10", "-w3",
                     f"{DATA}/ksref.fa", f"{DATA}/ksreads.fq"])

@@ -4,9 +4,9 @@ sketch loop (minialign.c:2383-2434), and index build/lookup/IO."""
 
 import numpy as np
 
-from minialign_tpu.index.build import MMIndex, build_index
-from minialign_tpu.index.sketch import crc32c_u64, hash64, sketch
-from minialign_tpu.params import IndexParams
+from minialign_jax.index.build import MMIndex, build_index
+from minialign_jax.index.sketch import crc32c_u64, hash64, sketch
+from minialign_jax.params import IndexParams
 
 # vectors captured from _mm_crc32_u64(x, x) on SSE4.2 hardware
 CRC_VECTORS = [
@@ -111,8 +111,8 @@ def test_sketch_jax_matches_host():
     minimizer streams across (k, w)."""
     import numpy as np
 
-    from minialign_tpu.index.sketch import sketch
-    from minialign_tpu.index.sketch_jax import sketch_jax
+    from minialign_jax.index.sketch import sketch
+    from minialign_jax.index.sketch_jax import sketch_jax
 
     rng = np.random.default_rng(31)
     for _ in range(12):
@@ -196,8 +196,8 @@ def test_build_thread_count_invariant(monkeypatch):
 
     import numpy as np
 
-    from minialign_tpu.index.build import build_index
-    from minialign_tpu.params import IndexParams
+    from minialign_jax.index.build import build_index
+    from minialign_jax.params import IndexParams
 
     rng = np.random.default_rng(23)
     g = rng.integers(0, 4, 200_000).astype(np.int8)

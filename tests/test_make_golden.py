@@ -1,6 +1,6 @@
 """Golden provenance: tests/tools/make_golden.py --check must
 reproduce every committed tests/data/ref_* file byte-for-byte from a
-reference-binary build (VERDICT round-1 item 9). Skips when no
+reference-binary build. Skips when no
 reference build is present (CI ships pre-generated goldens)."""
 
 import os

@@ -2,7 +2,7 @@
 CPU mesh routes cli.main through ShardedFillEngine + ShardedIndex
 (data-parallel extension batches, hash-range-sharded minimizer table
 with cross-shard merge) and must produce byte-identical output to the
-single-device run (VERDICT round-1 item 6; reference analogue: -t
+single-device run (reference analogue: -t
 engaging pt everywhere, minialign.c:4729)."""
 
 import io
@@ -15,7 +15,7 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def _run_cli(args, shard: str):
-    from minialign_tpu import cli
+    from minialign_jax import cli
     old_env = os.environ.get("MINIALIGN_SHARD")
     os.environ["MINIALIGN_SHARD"] = shard
     out = io.StringIO()

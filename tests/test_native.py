@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from minialign_tpu import native
+from minialign_jax import native
 
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -26,7 +26,7 @@ def _fallback(module, fn, *args, **kw):
 
 
 def test_cigar_and_parse_rv_parity():
-    from minialign_tpu.io import sam
+    from minialign_jax.io import sam
     rng = np.random.default_rng(5)
     for it in range(60):
         n = int(rng.integers(1, 400))
@@ -51,7 +51,7 @@ def test_cigar_and_parse_rv_parity():
 
 
 def test_fastx_parse_parity(tmp_path):
-    from minialign_tpu.io import bseq
+    from minialign_jax.io import bseq
     fa = tmp_path / "x.fa"
     fa.write_bytes(b">one comment  here \nACGTN\nacgt\n\n"
                    b">two\t tabbed comment\nGG  GG\n>three\nA\n")
@@ -76,8 +76,8 @@ def test_fastx_parse_parity(tmp_path):
 def test_traceback_parity():
     """Random fills through the XLA band, traced with and without the
     native walker — full TraceResult equality."""
-    from minialign_tpu.dp import band, traceback
-    from minialign_tpu.params import ScoreParams
+    from minialign_jax.dp import band, traceback
+    from minialign_jax.params import ScoreParams
 
     p = ScoreParams(matrix=tuple(2 if (i & 3) == (i >> 2) else -4
                                  for i in range(16)),
@@ -118,7 +118,7 @@ def test_traceback_parity():
 
 
 def test_sketch_parity():
-    from minialign_tpu.index import sketch as sk
+    from minialign_jax.index import sketch as sk
     rng = np.random.default_rng(9)
     for trial in range(20):
         L = int(rng.integers(1, 800))
@@ -132,7 +132,7 @@ def test_sketch_parity():
 
 
 def test_chain_parity():
-    from minialign_tpu import chain as ch
+    from minialign_jax import chain as ch
     rng = np.random.default_rng(41)
     for trial in range(25):
         n = int(rng.integers(2, 300))
@@ -160,7 +160,7 @@ def test_rle_paths_parity():
     """native.rle_paths vs the numpy LUT builder (extend.rle_paths_py)
     on randomized bit-packed (op | len << 2) entries, including the
     int8-negative wrap for len >= 32 and the empty walk."""
-    from minialign_tpu import extend
+    from minialign_jax import extend
     rng = np.random.default_rng(11)
     cases = [np.zeros(0, np.uint8)]
     for _ in range(40):
@@ -180,8 +180,8 @@ def test_collect_seeds_parity():
     round-0 path in chain.collect_seeds, on a randomized reference
     with planted repeats (to exercise the rescue tier) and reads from
     both strands."""
-    from minialign_tpu import chain
-    from minialign_tpu.index.build import IndexParams, build_index
+    from minialign_jax import chain
+    from minialign_jax.index.build import IndexParams, build_index
 
     rng = np.random.default_rng(7)
     rep = rng.integers(0, 4, 400).astype(np.int8)

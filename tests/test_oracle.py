@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from minialign_tpu.dp.oracle import oracle_extend
-from minialign_tpu.params import ScoreParams
+from minialign_jax.dp.oracle import oracle_extend
+from minialign_jax.params import ScoreParams
 
 CODE = {"A": 0, "C": 1, "G": 2, "T": 3, "N": 4}
 
@@ -71,9 +71,9 @@ def test_calc_score_matches_traced():
     score exactly for both affine and combined models."""
     import numpy as np
 
-    from minialign_tpu.dp import band
-    from minialign_tpu.dp.traceback import calc_score, traceback_batch
-    from minialign_tpu.params import ScoreParams
+    from minialign_jax.dp import band
+    from minialign_jax.dp.traceback import calc_score, traceback_batch
+    from minialign_jax.params import ScoreParams
 
     for p in (ScoreParams(matrix=tuple(2 if (i & 3) == (i >> 2) else -3
                                        for i in range(16)),

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from minialign_tpu.extend import FillEngine, revcomp_codes
-from minialign_tpu.index.build import build_index
-from minialign_tpu.params import IndexParams, MapParams
-from minialign_tpu.pipeline import align_batch
+from minialign_jax.extend import FillEngine, revcomp_codes
+from minialign_jax.index.build import build_index
+from minialign_jax.params import IndexParams, MapParams
+from minialign_jax.pipeline import align_batch
 
 
 @pytest.fixture(scope="module")
@@ -101,17 +101,14 @@ def test_short_read_skipped(index, engine):
     assert regs[0] is None
 
 
-def test_device_seq_store_matches_default(monkeypatch):
-    """MINIALIGN_DEVICE_SEQS=1 (on-device gather of band inputs) must
-    produce identical regs to the default upload path."""
+def test_device_seq_store_matches_default():
+    """The device path (sequence stores on the device, window reads,
+    fused down+up dispatch, device traceback) run with the XLA store
+    fill must produce identical regs to the host path."""
     import os
 
-    import numpy as np
-
-    from minialign_tpu.index.build import build_index
-    from minialign_tpu.io import bseq
-    from minialign_tpu.params import IndexParams, MapParams
-    from minialign_tpu.pipeline import align_batch
+    from minialign_jax.dp import band
+    from minialign_jax.io import bseq
 
     data = os.path.join(os.path.dirname(__file__), "data")
     ref = list(bseq.read_seqs(os.path.join(data, "tref.fa")))
@@ -121,8 +118,8 @@ def test_device_seq_store_matches_default(monkeypatch):
                      [s.codes for s in ref])
     mp = MapParams()
     base = align_batch(mp, mi, reads)
-    monkeypatch.setenv("MINIALIGN_DEVICE_SEQS", "1")
-    store = align_batch(mp, mi, reads)
+    dev = FillEngine(mp.score, fill=band.make_store_fill, device_path=True)
+    store = align_batch(mp, mi, reads, dev)
     for r1, r2 in zip(base, store):
         assert (r1 is None) == (r2 is None)
         if r1 is None:
@@ -139,7 +136,7 @@ def test_stale_rlen_tbuf(index, genome, engine):
     always shifts the root by -k). align_batch must replicate the
     sequential -t1 coupling and leave the last loaded root's ref
     length in tbuf."""
-    from minialign_tpu.extend import extend_read
+    from minialign_jax.extend import extend_read
     mp = MapParams()
     read = genome[1000:2500].copy()
 

@@ -19,7 +19,7 @@ def _run(extra_env, args):
     env["JAX_PLATFORMS"] = "cpu"
     env.update(extra_env)
     r = subprocess.run(
-        [sys.executable, "-m", "minialign_tpu.cli"] + args,
+        [sys.executable, "-m", "minialign_jax.cli"] + args,
         capture_output=True, env=env, cwd=ROOT, timeout=900)
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     return r.stdout
@@ -44,7 +44,7 @@ def test_nth_drives_worker_count(monkeypatch):
     overrides both ways."""
     import os as _os
 
-    from minialign_tpu.cli import _nproc_for
+    from minialign_jax.cli import _nproc_for
 
     monkeypatch.delenv("MINIALIGN_PROC_WORKERS", raising=False)
     monkeypatch.setattr(_os, "cpu_count", lambda: 8)

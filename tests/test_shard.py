@@ -4,11 +4,11 @@ import jax
 import numpy as np
 import pytest
 
-from minialign_tpu.dp import band
-from minialign_tpu.index.build import build_index
-from minialign_tpu.index.sketch import sketch
-from minialign_tpu.params import IndexParams, ScoreParams
-from minialign_tpu.parallel import shard
+from minialign_jax.dp import band
+from minialign_jax.index.build import build_index
+from minialign_jax.index.sketch import sketch
+from minialign_jax.params import IndexParams, ScoreParams
+from minialign_jax.parallel import shard
 
 
 @pytest.fixture(scope="module")
@@ -18,7 +18,8 @@ def mesh():
     return shard.make_mesh()
 
 
-def test_sharded_fill_matches_single(mesh):
+@pytest.mark.parametrize("trace", [False, True])
+def test_sharded_fill_matches_single(mesh, trace):
     p = ScoreParams()
     rng = np.random.default_rng(3)
     n = len(jax.devices())
@@ -27,36 +28,50 @@ def test_sharded_fill_matches_single(mesh):
     b = a.copy()
     ab, alen = band.pad_codes(list(a))
     bb, blen = band.pad_codes(list(b))
+    la, lb = ab.shape[1], bb.shape[1]
 
-    single = band.make_fill(p, 64, max_blocks=20, trace=False)
+    single = band.make_fill(p, 64, max_blocks=band.max_blocks_for(la, lb),
+                            trace=trace)
     r1 = single(ab, alen, bb, blen)
-    sharded = shard.make_sharded_fill(p, 64, max_blocks=20, mesh=mesh)
+    sharded = shard.make_sharded_fill(p, 64, la, lb, mesh=mesh, trace=trace)
     r2 = sharded(ab, alen, bb, blen)
-    np.testing.assert_array_equal(np.asarray(r1.max_score),
-                                  np.asarray(r2.max_score))
-    np.testing.assert_array_equal(np.asarray(r1.max_i),
-                                  np.asarray(r2.max_i))
+    if trace:
+        (r1, t1), (r2, t2) = r1, r2
+        for f in ("masks", "dirs", "iheads"):
+            np.testing.assert_array_equal(np.asarray(getattr(t1, f)),
+                                          np.asarray(getattr(t2, f)))
+    for f in r1._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(r1, f)),
+                                      np.asarray(getattr(r2, f)))
 
 
-def test_sharded_lookup_matches_host(mesh):
+@pytest.mark.parametrize("k,w", [(11, 6), (19, 10)])
+def test_sharded_lookup_matches_host(mesh, k, w):
+    """k > 16 hashes need more than 32 bits: the device lookup compares
+    both 32-bit halves (JAX narrows uint64 without x64)."""
     rng = np.random.default_rng(5)
     g = rng.integers(0, 4, 3000).astype(np.int8)
-    mi = build_index(IndexParams(k=11, w=6), ["c"], [g])
+    mi = build_index(IndexParams(k=k, w=w), ["c"], [g])
     n = len(jax.devices())
     keys_sh, starts_sh, counts_sh = shard.shard_index_arrays(
         mi.keys, mi.offsets, n)
+    khi, klo = shard.split_keys(keys_sh)
     lookup = shard.make_sharded_lookup(mesh)
 
-    qh, _, _ = sketch(g[100:800].astype(np.int64), 11, 6)
-    st_d, cn_d = lookup(keys_sh, starts_sh, counts_sh, qh)
+    qh, _, _ = sketch(g[100:800].astype(np.int64), k, w)
+    if k > 16:
+        assert int(np.asarray(qh, np.uint64).max()) >= 1 << 32
+    st_d, cn_d = lookup(khi, klo, starts_sh, counts_sh, qh)
     st_h, cn_h = mi.lookup(qh)
     np.testing.assert_array_equal(np.asarray(cn_d), cn_h)
     np.testing.assert_array_equal(np.asarray(st_d), st_h)
 
-    # absent keys return zero counts
-    miss = np.asarray([0xDEADBEEF], np.uint64)
-    _, cn0 = lookup(keys_sh, starts_sh, counts_sh, miss)
-    assert int(np.asarray(cn0)[0]) == 0
+    # absent keys return zero counts, including one that equals a present
+    # key in its low 32 bits
+    miss = np.asarray([0xDEADBEEF,
+                       int(qh[0]) ^ (1 << 40)], np.uint64)
+    _, cn0 = lookup(khi, klo, starts_sh, counts_sh, miss)
+    assert np.asarray(cn0).tolist() == [0, 0]
 
 
 @pytest.mark.slow
@@ -66,9 +81,9 @@ def test_align_batch_sharded_matches_single(mesh):
     single-device results."""
     import os
 
-    from minialign_tpu.io import bseq
-    from minialign_tpu.params import MapParams
-    from minialign_tpu.pipeline import align_batch
+    from minialign_jax.io import bseq
+    from minialign_jax.params import MapParams
+    from minialign_jax.pipeline import align_batch
 
     data = os.path.join(os.path.dirname(__file__), "data")
     ref = list(bseq.read_seqs(os.path.join(data, "tref.fa")))
@@ -97,7 +112,7 @@ def test_host_batches_partition():
     batch exactly once across hosts (the full merge — rank order +
     cross-host stale-rlen chain replay — is exercised end-to-end with
     two real jax.distributed processes in tests/test_distributed.py)."""
-    from minialign_tpu.parallel import distributed as dist
+    from minialign_jax.parallel import distributed as dist
 
     batches = [f"batch{i}" for i in range(11)]
     n_hosts = 3

@@ -15,7 +15,7 @@ jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
 
-from minialign_tpu.parallel import distributed  # noqa: E402
+from minialign_jax.parallel import distributed  # noqa: E402
 
 
 def main():
